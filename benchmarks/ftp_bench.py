@@ -28,10 +28,10 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     import jax.numpy as jnp
-    import simplestereo_tpu as ss
-    from simplestereo_tpu.active import buildFringe, StereoFTP
-    from simplestereo_tpu.geometry.npgeom import rodrigues_to_matrix
-    from simplestereo_tpu import warp
+    import simplestereo_jax as ss
+    from simplestereo_jax.active import buildFringe, StereoFTP
+    from simplestereo_jax.geometry.npgeom import rodrigues_to_matrix
+    from simplestereo_jax import warp
 
     CAM = (args.width, args.height)
     f = 1.1 * args.width

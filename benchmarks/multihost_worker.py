@@ -3,11 +3,12 @@
 The standard JAX multi-host recipe (SURVEY.md §2.3 / BASELINE.md): every
 process calls ``jax.distributed.initialize`` against a shared coordinator,
 contributes its local devices to one global mesh, and runs the SAME SPMD
-program; XLA routes collectives over ICI within a host and DCN across
-hosts. Here each process exposes N virtual CPU devices so the recipe is
-testable without a multi-host TPU slice (tests/test_multihost.py spawns
-2+ of these workers); on a real pod the identical code path runs with the
-TPU backend and no ``--xla_force_host_platform_device_count`` flag.
+program; XLA hands the collectives to the device interconnect within a
+host (NCCL on GPUs) and to the network across hosts. Here each process
+exposes N virtual CPU devices so the recipe is testable without a
+multi-host cluster (tests/test_multihost.py spawns 2+ of these workers);
+on real hosts the identical code path runs with the GPU backend and no
+``--xla_force_host_platform_device_count`` flag.
 
 Usage: python multihost_worker.py <process_id> <num_processes> <port>
           [local_devices] [consistent] [path]
@@ -19,8 +20,8 @@ belongs to (round-5, VERDICT r4 item 5):
   pattern, checked against the single-device kernel;
 - ``sgm``: row-tiled SGM — the wavefront pipeline's scan carries cross
   the process boundary (the DCN-analog leg of the ppermute chain);
-- ``gsw``: row-tiled GSW, Pallas engine (interpreter mode on CPU) under
-  shard_map, halo ppermutes crossing the process boundary;
+- ``gsw``: row-tiled GSW under shard_map, halo ppermutes crossing the
+  process boundary;
 - ``ftp``: row-sharded FTP — distributed y-unwrap (boundary-row ppermute
   + all_gather of per-shard column totals) and psum'd fringe order;
 - ``ba``: sharded Schur-complement bundle adjustment — psum'd intrinsic
@@ -59,8 +60,8 @@ def run_asw(mesh, n_dev, consistent, check):
     import jax
     from jax.experimental import multihost_utils
     from jax.sharding import NamedSharding, PartitionSpec as P
-    from simplestereo_tpu import parallel
-    from simplestereo_tpu.passive import asw_disparity
+    from simplestereo_jax import parallel
+    from simplestereo_jax.passive import asw_disparity
 
     img1, img2 = _frame_pair(n_dev)
     tiled = parallel.tiled_asw_disparity(
@@ -89,7 +90,7 @@ def run_asw(mesh, n_dev, consistent, check):
 def run_sgm(mesh, n_dev, consistent, check):
     import jax.numpy as jnp
     from jax.experimental import multihost_utils
-    from simplestereo_tpu import parallel
+    from simplestereo_jax import parallel
 
     img1, img2 = _frame_pair(n_dev)
     sgm_tiled = parallel.tiled_sgm_disparity(
@@ -97,12 +98,11 @@ def run_sgm(mesh, n_dev, consistent, check):
     sgm_out = np.asarray(
         multihost_utils.process_allgather(sgm_tiled, tiled=True))
     if check:
-        from simplestereo_tpu.passive.sgm import _sgm_disparity
+        from simplestereo_jax.passive.sgm import _sgm_disparity
         sgm_single = np.asarray(_sgm_disparity(
             jnp.asarray(img1), jnp.asarray(img2), min_disp=0, num_disp=4,
             block_size=3, P1=72, P2=288, paths=8, prefilter_cap=63.0,
-            uniqueness=10.0, disp12_max_diff=-1, subpixel=True,
-            aggregator="scan"))
+            uniqueness=10.0, disp12_max_diff=-1, subpixel=True))
         assert (sgm_single == sgm_out).all(), "tiled SGM multihost mismatch"
         return "sgm=bit-exact"
     return ""
@@ -110,20 +110,19 @@ def run_sgm(mesh, n_dev, consistent, check):
 
 def run_gsw(mesh, n_dev, consistent, check):
     from jax.experimental import multihost_utils
-    from simplestereo_tpu import parallel
+    from simplestereo_jax import parallel
 
     img1, img2 = _frame_pair(n_dev)
     gsw_tiled = parallel.tiled_gsw_disparity(
         _shard(img1, mesh), _shard(img2, mesh), mesh, win_size=5,
-        max_disp=4, gamma=10.0, f_max=60.0, consistent=consistent,
-        engine="pallas", interpret=True)
+        max_disp=4, gamma=10.0, f_max=60.0, consistent=consistent)
     gsw_out = np.asarray(
         multihost_utils.process_allgather(gsw_tiled, tiled=True))
     if check:
-        from simplestereo_tpu.passive.gsw import gsw_disparity
+        from simplestereo_jax.passive.gsw import gsw_disparity
         gsw_single = np.asarray(gsw_disparity(
             img1, img2, win_size=5, max_disp=4, gamma=10.0, f_max=60.0,
-            consistent=consistent, engine="pallas", interpret=True))
+            consistent=consistent))
         assert (gsw_single == gsw_out).all(), "tiled GSW multihost mismatch"
         return "gsw=bit-exact"
     return ""
@@ -131,9 +130,9 @@ def run_gsw(mesh, n_dev, consistent, check):
 
 def run_ftp(mesh, n_dev, consistent, check):
     import jax.numpy as jnp
-    from simplestereo_tpu import StereoRig, warp, parallel
-    from simplestereo_tpu.active import buildFringe, StereoFTP
-    from simplestereo_tpu.geometry.npgeom import rodrigues_to_matrix
+    from simplestereo_jax import StereoRig, warp, parallel
+    from simplestereo_jax.active import buildFringe, StereoFTP
+    from simplestereo_jax.geometry.npgeom import rodrigues_to_matrix
 
     CAM = (128, 96)
     K = np.array([[140.0, 0, 63.5], [0, 140.0, 47.5], [0, 0, 1]])
@@ -163,8 +162,8 @@ def run_ftp(mesh, n_dev, consistent, check):
 
 
 def run_ba(mesh, n_dev, consistent, check):
-    from simplestereo_tpu.calibration import ba
-    from simplestereo_tpu.calibration.sharded import calibrate_camera_sharded
+    from simplestereo_jax.calibration import ba
+    from simplestereo_jax.calibration.sharded import calibrate_camera_sharded
 
     rng_ba = np.random.default_rng(1)
     xx, yy = np.meshgrid(np.arange(7), np.arange(6))
@@ -218,7 +217,7 @@ def main():
         num_processes=nproc, process_id=pid)
 
     from jax.experimental import multihost_utils
-    from simplestereo_tpu import parallel
+    from simplestereo_jax import parallel
 
     n_dev = len(jax.devices())
     assert n_dev == local * nproc, (n_dev, local, nproc)

@@ -18,45 +18,44 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 OUT = pathlib.Path(__file__).parent / "api"
 
 MODULES = [
-    "simplestereo_tpu",
-    "simplestereo_tpu.rigs",
-    "simplestereo_tpu.calibration",
-    "simplestereo_tpu.calibration.chessboard",
-    "simplestereo_tpu.calibration.ba",
-    "simplestereo_tpu.calibration.procam",
-    "simplestereo_tpu.calibration.sharded",
-    "simplestereo_tpu.rectification",
-    "simplestereo_tpu.warp",
-    "simplestereo_tpu.passive",
-    "simplestereo_tpu.passive.asw_pallas",
-    "simplestereo_tpu.passive.asw_ref",
-    "simplestereo_tpu.passive.sgm",
-    "simplestereo_tpu.passive.sgm_pallas",
-    "simplestereo_tpu.passive.gsw",
-    "simplestereo_tpu.passive.gsw_pallas",
-    "simplestereo_tpu.passive.postfilter",
-    "simplestereo_tpu.passive.wls",
-    "simplestereo_tpu.passive.lab",
-    "simplestereo_tpu.active",
-    "simplestereo_tpu.active.patterns",
-    "simplestereo_tpu.active.graycode",
-    "simplestereo_tpu.active.ftp",
-    "simplestereo_tpu.active.stripe",
-    "simplestereo_tpu.unwrapping",
-    "simplestereo_tpu.points",
-    "simplestereo_tpu.parallel",
-    "simplestereo_tpu.parallel.sgm",
-    "simplestereo_tpu.parallel.gsw",
-    "simplestereo_tpu.parallel.ftp",
-    "simplestereo_tpu.v4l2",
-    "simplestereo_tpu.profiling",
-    "simplestereo_tpu.evaluation",
-    "simplestereo_tpu.geometry.projection",
-    "simplestereo_tpu.geometry.distortion",
-    "simplestereo_tpu.geometry.npgeom",
-    "simplestereo_tpu.geometry.rotations",
-    "simplestereo_tpu.utils",
-    "simplestereo_tpu.imgio",
+    "simplestereo_jax",
+    "simplestereo_jax.rigs",
+    "simplestereo_jax.calibration",
+    "simplestereo_jax.calibration.chessboard",
+    "simplestereo_jax.calibration.ba",
+    "simplestereo_jax.calibration.procam",
+    "simplestereo_jax.calibration.sharded",
+    "simplestereo_jax.rectification",
+    "simplestereo_jax.warp",
+    "simplestereo_jax.passive",
+    "simplestereo_jax.passive.asw",
+    "simplestereo_jax.passive.asw_pallas",
+    "simplestereo_jax.passive.asw_ref",
+    "simplestereo_jax.passive.sgm",
+    "simplestereo_jax.passive.gsw",
+    "simplestereo_jax.passive.postfilter",
+    "simplestereo_jax.passive.wls",
+    "simplestereo_jax.passive.lab",
+    "simplestereo_jax.active",
+    "simplestereo_jax.active.patterns",
+    "simplestereo_jax.active.graycode",
+    "simplestereo_jax.active.ftp",
+    "simplestereo_jax.active.stripe",
+    "simplestereo_jax.unwrapping",
+    "simplestereo_jax.points",
+    "simplestereo_jax.parallel",
+    "simplestereo_jax.parallel.sgm",
+    "simplestereo_jax.parallel.gsw",
+    "simplestereo_jax.parallel.ftp",
+    "simplestereo_jax.v4l2",
+    "simplestereo_jax.profiling",
+    "simplestereo_jax.evaluation",
+    "simplestereo_jax.geometry.projection",
+    "simplestereo_jax.geometry.distortion",
+    "simplestereo_jax.geometry.npgeom",
+    "simplestereo_jax.geometry.rotations",
+    "simplestereo_jax.utils",
+    "simplestereo_jax.imgio",
 ]
 
 
@@ -84,7 +83,7 @@ def _public_members(mod):
         if (inspect.isclass(obj) or inspect.isfunction(obj)
                 or callable(obj)):
             home = getattr(obj, "__module__", mod.__name__)
-            if home and not home.startswith("simplestereo_tpu"):
+            if home and not home.startswith("simplestereo_jax"):
                 continue
             out.append((n, obj))
     return out
@@ -205,7 +204,7 @@ def md_to_html(md, title):
 def main():
     OUT.mkdir(parents=True, exist_ok=True)
     HTML_OUT.mkdir(parents=True, exist_ok=True)
-    index = ["# simplestereo_tpu API reference", ""]
+    index = ["# simplestereo_jax API reference", ""]
     for name in MODULES:
         try:
             text = render_module(name)
@@ -226,7 +225,7 @@ def main():
         index.append(f"- [`{name}`]({fn}) — {summary}")
     (OUT / "index.md").write_text("\n".join(index) + "\n")
     (HTML_OUT / "index.html").write_text(
-        md_to_html("\n".join(index) + "\n", "simplestereo_tpu API"))
+        md_to_html("\n".join(index) + "\n", "simplestereo_jax API"))
     print(f"wrote {len(MODULES)} module pages to {OUT} and {HTML_OUT}")
 
 

@@ -6,8 +6,8 @@ frames are pulled via the threaded ss.utils.Capture grabber."""
 import sys
 import time
 
-import simplestereo_tpu as ss
-from simplestereo_tpu.imgio import imwrite
+import simplestereo_jax as ss
+from simplestereo_jax.imgio import imwrite
 
 
 def wait_frame(cap, timeout=5.0):

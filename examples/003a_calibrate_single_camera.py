@@ -3,7 +3,7 @@
 import glob
 import sys
 
-import simplestereo_tpu as ss
+import simplestereo_jax as ss
 
 folder = sys.argv[1] if len(sys.argv) > 1 else \
     "/root/reference/examples/res/1/calib"

@@ -1,8 +1,8 @@
 """Undistort a stereo pair with the calibrated rig
 (cf. reference examples/004a)."""
 
-import simplestereo_tpu as ss
-from simplestereo_tpu.imgio import imread, imwrite
+import simplestereo_jax as ss
+from simplestereo_jax.imgio import imread, imwrite
 
 RES = "/root/reference/examples/res/1/"
 rig = ss.StereoRig.fromFile(RES + "rig.json")

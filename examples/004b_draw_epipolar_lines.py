@@ -3,8 +3,8 @@
 
 import numpy as np
 
-import simplestereo_tpu as ss
-from simplestereo_tpu.imgio import imread, imwrite
+import simplestereo_jax as ss
+from simplestereo_jax.imgio import imread, imwrite
 
 RES = "/root/reference/examples/res/1/"
 rig = ss.StereoRig.fromFile(RES + "rig.json")

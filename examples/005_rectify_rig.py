@@ -1,7 +1,7 @@
 """Rectify a calibrated rig analytically (cf. reference examples/005:
 directRectify is the default minimal-distortion method)."""
 
-import simplestereo_tpu as ss
+import simplestereo_jax as ss
 
 RES = "/root/reference/examples/res/2/"
 rig = ss.StereoRig.fromFile(RES + "rig.json")

@@ -1,8 +1,8 @@
 """Apply rectification maps to an image pair (cf. reference examples/006).
 The warp runs on device (jitted gather remap)."""
 
-import simplestereo_tpu as ss
-from simplestereo_tpu.imgio import imread, imwrite
+import simplestereo_jax as ss
+from simplestereo_jax.imgio import imread, imwrite
 
 RES = "/root/reference/examples/res/2/"
 rigRect = ss.RectifiedStereoRig.fromFile(RES + "rigRect.json")

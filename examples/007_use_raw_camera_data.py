@@ -3,7 +3,7 @@
 
 import numpy as np
 
-import simplestereo_tpu as ss
+import simplestereo_jax as ss
 
 res = (640, 480)
 K = np.array([[600.0, 0, 320], [0, 600.0, 240], [0, 0, 1]])

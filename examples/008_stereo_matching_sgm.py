@@ -1,12 +1,12 @@
-"""Dense disparity with the built-in SGM matcher — the TPU-native
+"""Dense disparity with the built-in SGM matcher — the JAX
 replacement for the reference's cv2.StereoSGBM call (examples/008)."""
 
 import sys
 
 import numpy as np
 
-import simplestereo_tpu as ss
-from simplestereo_tpu.imgio import imread, imwrite
+import simplestereo_jax as ss
+from simplestereo_jax.imgio import imread, imwrite
 
 # Optional integer downscale (the knob the reference example applies
 # unconditionally, examples/008:24-27); 1 = full resolution.

@@ -1,16 +1,16 @@
-"""Dense disparity with the Pallas adaptive-support-weight matcher
+"""Dense disparity with the adaptive-support-weight matcher
 (cf. reference examples/009; unlike the reference's C++ version, no
-pre-downscaling is needed on TPU)."""
+pre-downscaling is needed)."""
 
 import sys
 
 import numpy as np
 
-import simplestereo_tpu as ss
-from simplestereo_tpu.imgio import imread, imwrite
+import simplestereo_jax as ss
+from simplestereo_jax.imgio import imread, imwrite
 
 # Optional integer downscale (the reference example always downscales 4x,
-# examples/009:31-34; on TPU the full-resolution scan is practical).
+# examples/009:31-34; here the full-resolution scan is practical).
 DOWN = int(sys.argv[1]) if len(sys.argv) > 1 else 1
 
 RES = "/root/reference/examples/res/2/"

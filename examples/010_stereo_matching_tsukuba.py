@@ -4,9 +4,9 @@ visualizes; metrics here come from ss.evaluation)."""
 
 import numpy as np
 
-import simplestereo_tpu as ss
-from simplestereo_tpu.evaluation import evaluate_disparity, tsukuba_scale
-from simplestereo_tpu.imgio import imread, imwrite
+import simplestereo_jax as ss
+from simplestereo_jax.evaluation import evaluate_disparity, tsukuba_scale
+from simplestereo_jax.imgio import imread, imwrite
 
 RES = "/root/reference/examples/res/tsukuba/"
 img1 = imread(RES + "tsukuba_l.png")
@@ -21,9 +21,8 @@ dispASW = asw.compute(img1, img2)
 sgm = ss.passive.StereoSGM(minDisparity=4, numDisparities=10, blockSize=11)
 dispSGM = sgm.compute(img1, img2)
 
-# GSW at its tuned point (closed-form weights; Pallas kernel on TPU).
-# The reference labels its GSW "do not use in production" — here it is a
-# production matcher: bad-2.0 ~2.4%, 32 Mpix*disp/s on one chip.
+# GSW at its tuned point (closed-form weights). The reference labels its
+# GSW "do not use in production" — here it reaches bad-2.0 ~2.4%.
 gsw = ss.passive.StereoGSW(winSize=23, minDisparity=4, maxDisparity=14,
                            gamma=12.5, fMax=20, consistent=True)
 dispGSW = gsw.compute(img1, img2)

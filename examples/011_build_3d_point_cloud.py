@@ -3,8 +3,8 @@
 
 import numpy as np
 
-import simplestereo_tpu as ss
-from simplestereo_tpu.imgio import imread
+import simplestereo_jax as ss
+from simplestereo_jax.imgio import imread
 
 RES = "/root/reference/examples/res/2/"
 rigRect = ss.RectifiedStereoRig.fromFile(RES + "rigRect.json")

@@ -3,7 +3,7 @@ StructuredLightRig (cf. reference examples/101)."""
 
 import numpy as np
 
-import simplestereo_tpu as ss
+import simplestereo_jax as ss
 
 RES = "/root/reference/examples/res/stereoFTP/"
 rig = ss.StructuredLightRig.fromFile(RES + "stereoRig.json")

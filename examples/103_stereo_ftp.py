@@ -10,8 +10,8 @@ import sys
 
 import numpy as np
 
-import simplestereo_tpu as ss
-from simplestereo_tpu.imgio import imread
+import simplestereo_jax as ss
+from simplestereo_jax.imgio import imread
 
 RES = "/root/reference/examples/res/stereoFTP/"
 OBJ_IMAGE = sys.argv[1] if len(sys.argv) > 1 else RES + "ellipsoid8.png"
@@ -26,7 +26,7 @@ else:
     print(f"{OBJ_IMAGE} not found (not committed upstream); "
           "synthesizing a plane capture")
     import jax.numpy as jnp
-    from simplestereo_tpu import warp
+    from simplestereo_jax import warp
 
     K1 = np.asarray(rig.intrinsic1, float)
     K2 = np.asarray(rig.intrinsic2, float)

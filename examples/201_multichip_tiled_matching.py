@@ -1,12 +1,12 @@
-"""TPU-native extra: shard dense matching over a device mesh with halo
+"""Extra: shard dense matching over a device mesh with halo
 exchange (no reference equivalent — the reference's only parallelism is a
 CPU thread pool)."""
 
 import numpy as np
 
-import simplestereo_tpu as ss
-from simplestereo_tpu import parallel
-from simplestereo_tpu.imgio import imread
+import simplestereo_jax as ss
+from simplestereo_jax import parallel
+from simplestereo_jax.imgio import imread
 
 RES = "/root/reference/examples/res/tsukuba/"
 img1 = imread(RES + "tsukuba_l.png")
@@ -21,7 +21,7 @@ disp = parallel.tiled_asw_disparity(
     gamma_c=15, gamma_p=17.5, consistent=True)
 print("Tiled disparity:", np.asarray(disp).shape)
 
-# Round 3: the whole matcher family tiles over the mesh.
+# The whole matcher family tiles over the mesh.
 disp_sgm = parallel.tiled_sgm_disparity(
     img1[:H], img2[:H], mesh, num_disp=16, cost_method="census",
     census_window=7, P1=120, P2=480, uniqueness=0)

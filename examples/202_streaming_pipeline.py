@@ -4,7 +4,7 @@ Production-serving shape on one chip: frames are pulled from two
 (synthetic or live) cameras by the threaded grabbers, accumulated into
 fixed-size batches, and matched with ONE kernel launch per batch
 (`StereoASW.computeBatch` — the frame axis rides the Pallas grid, so
-per-dispatch latency is amortized; see simplestereo_tpu/passive).
+per-dispatch latency is amortized; see simplestereo_jax/passive).
 
 Swap the `make_camera` callables for `ss.utils.Capture(0)` /
 `Capture(1)` (V4L2) or any driver-protocol object to run live.
@@ -17,7 +17,7 @@ import time
 
 import numpy as np
 
-import simplestereo_tpu as ss
+import simplestereo_jax as ss
 
 N_BATCHES = int(sys.argv[1]) if len(sys.argv) > 1 else 3
 BATCH = int(sys.argv[2]) if len(sys.argv) > 2 else 4

@@ -19,9 +19,9 @@ import sys
 import numpy as np
 import jax.numpy as jnp
 
-import simplestereo_tpu as ss
-from simplestereo_tpu import warp
-from simplestereo_tpu.geometry.npgeom import rodrigues_to_matrix
+import simplestereo_jax as ss
+from simplestereo_jax import warp
+from simplestereo_jax.geometry.npgeom import rodrigues_to_matrix
 
 B = int(sys.argv[1]) if len(sys.argv) > 1 else 4
 W = int(sys.argv[2]) if len(sys.argv) > 2 else 160

@@ -3,7 +3,7 @@
 Beyond the reference (its GSW is single-cost and its MI cost is an
 unimplemented TODO, _passive.cpp:506-508): the ``auto`` cost method
 probes each pair's radiometric agreement with a cheap histogram
-earth-mover's distance (:func:`simplestereo_tpu.passive.gsw.
+earth-mover's distance (:func:`simplestereo_jax.passive.gsw.
 radiometric_divergence`) and engages the mutual-information cost only
 when the squared-difference cost is actually broken — MI is slower and
 slightly worse on matched radiometry, so paying its tax by default
@@ -24,10 +24,10 @@ import sys
 
 import numpy as np
 
-import simplestereo_tpu as ss
-from simplestereo_tpu.imgio import imread
-from simplestereo_tpu.evaluation import evaluate_disparity, tsukuba_scale
-from simplestereo_tpu.passive.gsw import radiometric_divergence
+import simplestereo_jax as ss
+from simplestereo_jax.imgio import imread
+from simplestereo_jax.evaluation import evaluate_disparity, tsukuba_scale
+from simplestereo_jax.passive.gsw import radiometric_divergence
 
 res = (sys.argv[1] if len(sys.argv) > 1
        else "/root/reference/examples/res/tsukuba")

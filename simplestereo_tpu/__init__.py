@@ -1,63 +1,40 @@
-"""
-simplestereo_tpu
-================
+"""Deprecated alias of :mod:`simplestereo_jax`, the package's former name.
 
-A TPU-native stereo vision framework built on JAX / XLA / Pallas.
-
-Capability-parity target: decadenza/SimpleStereo (see /root/reference), but
-re-designed TPU-first:
-
-- all dense per-pixel compute (warping, cost volumes, FFT profilometry,
-  Gray-code decode, bundle-adjustment residuals) runs on device as jitted
-  XLA programs or Pallas kernels;
-- small 3x3 rig algebra (homography derivations, calibration bookkeeping)
-  stays host-side in float64 numpy: it is control-plane work and demands
-  bit-accurate double precision;
-- multi-chip scaling is expressed with ``jax.sharding.Mesh`` + ``shard_map``
-  (frame-batch data parallelism and spatial tiling with halo exchange),
-  never with host threads.
-
-Public API mirrors the reference package (``simplestereo``) so existing
-users can switch: rig classes are exported at package level, algorithms live
-in ``calibration``, ``rectification``, ``passive``, ``active``,
-``unwrapping``, ``points`` and ``utils`` submodules.
-
-Reference layer map: /root/reference/simplestereo/__init__.py:11-24
+Importing this package, or any of its submodules, warns once and yields
+the ``simplestereo_jax`` module itself, so old imports keep working and
+share state with new ones. It will be removed in a later release.
 """
 
-__version__ = "0.1.0"
+import importlib
+import importlib.abc
+import importlib.util
+import sys
+import warnings
 
-from .rigs import StereoRig, RectifiedStereoRig, StructuredLightRig
+import simplestereo_jax
 
-from . import geometry
-from . import warp
-from . import rigs
-from . import calibration
-from . import rectification
-from . import passive
-from . import active
-from . import unwrapping
-from . import points
-from . import parallel
-from . import utils
-from . import profiling
-from . import evaluation
+_ALIAS = __name__
+_TARGET = simplestereo_jax.__name__
 
-__all__ = [
-    "StereoRig",
-    "RectifiedStereoRig",
-    "StructuredLightRig",
-    "geometry",
-    "warp",
-    "rigs",
-    "calibration",
-    "rectification",
-    "passive",
-    "active",
-    "unwrapping",
-    "points",
-    "parallel",
-    "utils",
-    "profiling",
-    "evaluation",
-]
+
+class _AliasFinder(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    """Resolves ``<alias>.<sub>`` to the module ``simplestereo_jax.<sub>``."""
+
+    def find_spec(self, fullname, path=None, target=None):
+        if fullname.startswith(_ALIAS + "."):
+            return importlib.util.spec_from_loader(fullname, self)
+        return None
+
+    def create_module(self, spec):
+        return None
+
+    def exec_module(self, module):
+        # the import system returns whatever sys.modules holds afterwards
+        sys.modules[module.__name__] = importlib.import_module(
+            _TARGET + module.__name__[len(_ALIAS):])
+
+
+warnings.warn(f"{_ALIAS} is renamed {_TARGET}; import {_TARGET} instead",
+              DeprecationWarning, stacklevel=2)
+sys.meta_path.insert(0, _AliasFinder())
+sys.modules[_ALIAS] = simplestereo_jax

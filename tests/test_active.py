@@ -4,8 +4,8 @@ synthetic scenes with known geometry."""
 import numpy as np
 import pytest
 
-import simplestereo_tpu as ss
-from simplestereo_tpu.active import (
+import simplestereo_jax as ss
+from simplestereo_jax.active import (
     graycode_patterns, graycode_num_bits, decode_graycode,
     buildFringe, buildBinaryFringe, buildAnaglyphFringe,
     findCentralStripe, computeROI, GrayCode, GrayCodeDouble, StereoFTP)
@@ -24,7 +24,7 @@ def _make_rig():
     # the reference's, assumes a near-horizontal but not exactly parallel
     # camera-projector arrangement).
     K = np.array([[140., 0, 63.5], [0, 140., 47.5], [0, 0, 1]])
-    from simplestereo_tpu.geometry.npgeom import rodrigues_to_matrix
+    from simplestereo_jax.geometry.npgeom import rodrigues_to_matrix
     R = rodrigues_to_matrix(np.array([0.0, -0.05, 0.0]))
     T = np.array([[-40.], [1.0], [6.0]])
     return ss.StereoRig(CAM_RES, PROJ_RES, K, K, None, None, R, T)
@@ -239,7 +239,7 @@ def ftp_scene():
     z0 = 520.0
     mapu, mapv, _ = _proj_coords_for_plane(rig, z0)
     # bilinear sample of the BGR fringe
-    from simplestereo_tpu import warp
+    from simplestereo_jax import warp
     import jax.numpy as jnp
     cam_img = np.asarray(warp.remap(
         jnp.asarray(fringe), jnp.asarray(mapu, jnp.float32),
@@ -306,7 +306,7 @@ def test_ftp_cloud_batch_matches_single(ftp_scene):
     with pytest.raises(ValueError):
         ftp.getCloudBatch(cam)  # not a stack
 
-    from simplestereo_tpu.active import StereoFTP_Mapping
+    from simplestereo_jax.active import StereoFTP_Mapping
     mapping = StereoFTP_Mapping(ftp_scene["rig"], ftp_scene["fringe"],
                                 ftp_scene["period"])
     with pytest.raises(TypeError):
@@ -342,8 +342,8 @@ def test_ftp_rejects_gray_image(ftp_scene):
 
 
 def test_ftp_anaglyph_recovers_plane():
-    from simplestereo_tpu.active import StereoFTPAnaglyph
-    from simplestereo_tpu import warp
+    from simplestereo_jax.active import StereoFTPAnaglyph
+    from simplestereo_jax import warp
     import jax.numpy as jnp
     rig = _make_rig()
     period = 16.0
@@ -365,9 +365,9 @@ def test_ftp_subclass_overriding_only_convertGrayscale():
     point (its StereoFTPAnaglyph overrides exactly that). A downstream
     subclass overriding ONLY the host convertGrayscale must get its
     grayscale definition honored by the fused pipeline too."""
-    from simplestereo_tpu.active import StereoFTPAnaglyph
-    from simplestereo_tpu.active.ftp import StereoFTP
-    from simplestereo_tpu import warp
+    from simplestereo_jax.active import StereoFTPAnaglyph
+    from simplestereo_jax.active.ftp import StereoFTP
+    from simplestereo_jax import warp
     import jax.numpy as jnp
 
     class UserAnaglyph(StereoFTP):
@@ -405,7 +405,7 @@ def test_ftp_subclass_overriding_only_convertGrayscale():
 
 
 def test_ftp_mapping_variant(ftp_scene):
-    from simplestereo_tpu.active import StereoFTP_Mapping
+    from simplestereo_jax.active import StereoFTP_Mapping
     ftp = StereoFTP_Mapping(ftp_scene["rig"], ftp_scene["fringe"],
                             ftp_scene["period"])
     cloud = ftp.getCloud(ftp_scene["cam_img"])
@@ -458,7 +458,7 @@ def test_ftp_debug_dump_and_plot(ftp_scene, tmp_path):
     np.testing.assert_allclose(dump2["phase"], dump["phase"],
                                rtol=1e-4, atol=1e-4)
     # the Mapping variant exposes its object spectrum + phase too
-    from simplestereo_tpu.active import StereoFTP_Mapping
+    from simplestereo_jax.active import StereoFTP_Mapping
     ftpm = StereoFTP_Mapping(ftp_scene["rig"], ftp_scene["fringe"],
                              ftp_scene["period"])
     dump3 = {}
@@ -468,7 +468,7 @@ def test_ftp_debug_dump_and_plot(ftp_scene, tmp_path):
 
 
 def test_ftp_phase_only(ftp_scene):
-    from simplestereo_tpu.active import StereoFTP_PhaseOnly
+    from simplestereo_jax.active import StereoFTP_PhaseOnly
     ftp = StereoFTP_PhaseOnly(ftp_scene["rig"], ftp_scene["fringe"],
                               ftp_scene["period"])
     phase = ftp.getPhase(ftp_scene["cam_img"])
@@ -547,9 +547,9 @@ def test_ftp_subclass_overriding_only_device_grayscale():
     """A subclass overriding ONLY convertGrayscaleDevice (without a
     matching _GRAY_MODE) must have it honored by the fused path instead
     of silently falling back to the base max-channel mode."""
-    from simplestereo_tpu.active import StereoFTPAnaglyph
-    from simplestereo_tpu.active.ftp import StereoFTP
-    from simplestereo_tpu import warp
+    from simplestereo_jax.active import StereoFTPAnaglyph
+    from simplestereo_jax.active.ftp import StereoFTP
+    from simplestereo_jax import warp
     import jax.numpy as jnp
 
     class UserDeviceAnaglyph(StereoFTP):
@@ -594,8 +594,8 @@ def test_ftp_random_geometries(rng):
     fringe period, plane distance), not just the one fixture scene —
     the epipole position and carrier-frequency math are the fragile
     spots."""
-    from simplestereo_tpu import warp
-    from simplestereo_tpu.geometry.npgeom import rodrigues_to_matrix
+    from simplestereo_jax import warp
+    from simplestereo_jax.geometry.npgeom import rodrigues_to_matrix
     import jax.numpy as jnp
 
     for trial in range(4):
@@ -629,7 +629,7 @@ def test_graycode_random_geometries(rng):
     """Property fuzz: Gray-code scanning recovers plane depth across
     randomized rig geometries (cf. the FTP fuzz; the re-distortion
     triangulation and rectifying transforms are shared fragile spots)."""
-    from simplestereo_tpu.geometry.npgeom import rodrigues_to_matrix
+    from simplestereo_jax.geometry.npgeom import rodrigues_to_matrix
 
     pats, nx, ny = graycode_patterns(PROJ_RES)
     for trial in range(3):

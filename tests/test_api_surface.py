@@ -2,14 +2,14 @@
 
 Every public symbol of /root/reference/simplestereo (classes, functions,
 methods, rig properties — see SURVEY.md §2.1) must exist on
-simplestereo_tpu so a reference user can switch without code changes.
+simplestereo_jax so a reference user can switch without code changes.
 The reference tree itself is not needed: the expected surface is pinned
 here from the survey.
 """
 
 import pytest
 
-import simplestereo_tpu as ss
+import simplestereo_jax as ss
 
 MODULE_SYMBOLS = {
     "": ["StereoRig", "RectifiedStereoRig", "StructuredLightRig"],

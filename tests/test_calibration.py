@@ -4,8 +4,8 @@ reference's committed calibration suite, helpers."""
 import numpy as np
 import pytest
 
-import simplestereo_tpu as ss
-from simplestereo_tpu.calibration import ba
+import simplestereo_jax as ss
+from simplestereo_jax.calibration import ba
 
 
 @pytest.fixture(scope="module")
@@ -104,8 +104,8 @@ def test_distortion_flag_counts():
 
 
 def test_chessboard_detection_real_pair(ref_res):
-    from simplestereo_tpu.imgio import imread
-    from simplestereo_tpu.calibration import find_chessboard_corners
+    from simplestereo_jax.imgio import imread
+    from simplestereo_jax.calibration import find_chessboard_corners
     gl = imread(str(ref_res / "1" / "calib" / "0_L.png"), grayscale=True)
     gr = imread(str(ref_res / "1" / "calib" / "0_R.png"), grayscale=True)
     fl, cl = find_chessboard_corners(gl, (7, 6))
@@ -152,8 +152,8 @@ def test_fundamental_from_projections(rig2):
 def test_full_suite_golden_parity(ref_res):
     """30-pair stereo calibration within tolerance of the committed rig."""
     import json
-    from simplestereo_tpu.imgio import imread
-    from simplestereo_tpu.calibration import find_chessboard_corners
+    from simplestereo_jax.imgio import imread
+    from simplestereo_jax.calibration import find_chessboard_corners
 
     xx, yy = np.meshgrid(np.arange(7), np.arange(6))
     obj = np.stack([xx.ravel() * 60.5, yy.ravel() * 60.5, np.zeros(42)], 1)
@@ -186,8 +186,8 @@ def test_full_suite_golden_parity_res2(ref_res):
     committed rig.json (measured: RMS 0.211 vs golden 0.207, K1 within
     1.5 px, R within 4e-4, T within 0.04 mm)."""
     import json
-    from simplestereo_tpu.imgio import imread
-    from simplestereo_tpu.calibration import find_chessboard_corners
+    from simplestereo_jax.imgio import imread
+    from simplestereo_jax.calibration import find_chessboard_corners
 
     xx, yy = np.meshgrid(np.arange(7), np.arange(6))
     obj = np.stack([xx.ravel() * 60.5, yy.ravel() * 60.5, np.zeros(42)], 1)
@@ -215,8 +215,8 @@ def test_full_suite_golden_parity_res2(ref_res):
 
 def test_sharded_ba_matches_truth(synth):
     """Distributed Schur-complement GN on the 8-device mesh."""
-    from simplestereo_tpu.calibration.sharded import calibrate_camera_sharded
-    from simplestereo_tpu import parallel
+    from simplestereo_jax.calibration.sharded import calibrate_camera_sharded
+    from simplestereo_jax import parallel
 
     V = 16
     rng = synth["rng"]
@@ -256,8 +256,8 @@ def test_chessboard_detection_other_suites(ref_res):
     chessboard) — the detector must reject every one, not hallucinate a
     lattice."""
     import glob
-    from simplestereo_tpu.imgio import imread
-    from simplestereo_tpu.calibration.chessboard import \
+    from simplestereo_jax.imgio import imread
+    from simplestereo_jax.calibration.chessboard import \
         find_chessboard_corners
 
     files = sorted(glob.glob(str(ref_res / "2/calib" / "*_L.png")))[:8]

@@ -1,9 +1,9 @@
-"""Tests for simplestereo_tpu.evaluation (Middlebury-style metrics)."""
+"""Tests for simplestereo_jax.evaluation (Middlebury-style metrics)."""
 
 import numpy as np
 import pytest
 
-from simplestereo_tpu.evaluation import evaluate_disparity, tsukuba_scale
+from simplestereo_jax.evaluation import evaluate_disparity, tsukuba_scale
 
 
 def test_perfect_map():
@@ -66,7 +66,7 @@ def test_shape_validation():
 def test_matches_bench_inline_math(ref_res):
     """Against the golden ASW fixture: the module must reproduce the
     long-standing inline bad-2.0 computation bit-for-bit."""
-    from simplestereo_tpu.imgio import imread
+    from simplestereo_jax.imgio import imread
     d = str(ref_res) + "/tsukuba/"
     gt = imread(d + "groundtruth.png", grayscale=True)
     nonocc = imread(d + "nonocc.png", grayscale=True)

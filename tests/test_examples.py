@@ -32,7 +32,7 @@ SLOW = [
     "202_streaming_pipeline.py",
     "204_radiometric_auto_matching.py",  # 3 full GSW passes on Tsukuba
     "006_rectify_images.py",       # 720p remap compile
-    "010_stereo_matching_tsukuba.py",   # ASW+SGM on Tsukuba (interpret)
+    "010_stereo_matching_tsukuba.py",   # ASW+SGM on Tsukuba
     "011_build_3d_point_cloud.py",
     "101_structured_light_rig.py",
     "103_stereo_ftp.py",
@@ -64,7 +64,7 @@ def test_example_002_video_sources(tmp_path, monkeypatch, rng):
     (reference utils.py:51-58 accepts video files via cv2.VideoCapture)."""
     import numpy as np
 
-    from simplestereo_tpu.videoio import VideoWriter
+    from simplestereo_jax.videoio import VideoWriter
 
     paths = []
     for side in ("L", "R"):

@@ -5,8 +5,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from simplestereo_tpu import geometry
-from simplestereo_tpu.geometry import npgeom
+from simplestereo_jax import geometry
+from simplestereo_jax.geometry import npgeom
 
 DIST5 = np.array([-0.25, 0.08, 1e-3, -5e-4, 0.012])
 DIST8 = np.array([-0.25, 0.08, 1e-3, -5e-4, 0.012, -0.2, 0.05, 0.008])

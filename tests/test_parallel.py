@@ -8,8 +8,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from simplestereo_tpu import parallel
-from simplestereo_tpu.passive import asw_disparity
+from simplestereo_jax import parallel
+from simplestereo_jax.passive import asw_disparity
 
 
 @pytest.fixture(scope="module")
@@ -35,6 +35,21 @@ def test_tiled_asw_matches_single_device(rng, consistent):
     assert mismatch <= 0.005, f"tiled/single mismatch {mismatch:.2%}"
 
 
+@pytest.mark.parametrize("consistent", [False, True])
+def test_tiled_asw_kernel_matches_single_device(rng, consistent):
+    """shard_map around the GPU kernel (Pallas interpreter here) in
+    context mode, with invalid halo rows at the global boundary, equals
+    the single-device matcher bit for bit."""
+    mesh = parallel.make_mesh({"rows": 4}, devices=jax.devices()[:4])
+    img1 = rng.integers(0, 256, (32, 40, 3), np.uint8)
+    img2 = np.roll(img1, -2, axis=1)
+    kw = dict(win_size=5, max_disp=4, min_disp=0, consistent=consistent)
+    single = np.asarray(asw_disparity(img1, img2, **kw))
+    tiled = np.asarray(parallel.tiled_asw_disparity(
+        img1, img2, mesh, row_axis="rows", interpret=True, **kw))
+    np.testing.assert_array_equal(single, tiled)
+
+
 def test_tiled_asw_rejects_indivisible_rows(mesh8):
     img = np.zeros((30, 16, 3), np.uint8)
     with pytest.raises(ValueError):
@@ -58,8 +73,8 @@ def test_psum_stats(mesh8):
 @pytest.mark.parametrize("consistent", [False, True])
 def test_tiled_batch_matches_single_device(rng, mesh8, consistent):
     """Frame-DP x row-tiling over the 2-D mesh (the dryrun_multichip
-    program shape: batched Pallas grid, halo ppermute, no vmap around the
-    kernel) matches per-frame single-device output."""
+    program shape: one batched matcher call per shard, halo ppermute)
+    matches per-frame single-device output."""
     img1 = rng.integers(0, 256, (4, 16, 40, 3), np.uint8)
     img2 = np.roll(img1, -2, axis=2)
     kw = dict(win_size=5, max_disp=4, min_disp=0, consistent=consistent)

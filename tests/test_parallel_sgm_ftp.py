@@ -7,8 +7,8 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from simplestereo_tpu import parallel
-from simplestereo_tpu.passive.sgm import _sgm_disparity
+from simplestereo_jax import parallel
+from simplestereo_jax.passive.sgm import _sgm_disparity
 
 
 def _pair(rng, h=32, w=48, shift=3):
@@ -20,7 +20,7 @@ def _pair(rng, h=32, w=48, shift=3):
 def _single(img1, img2, **kw):
     defaults = dict(min_disp=0, num_disp=8, block_size=3, P1=72, P2=288,
                     paths=8, prefilter_cap=63.0, uniqueness=10.0,
-                    disp12_max_diff=-1, subpixel=True, aggregator="scan",
+                    disp12_max_diff=-1, subpixel=True,
                     cost_method="bt", census_window=5)
     defaults.update(kw)
     return np.asarray(_sgm_disparity(jnp.asarray(img1), jnp.asarray(img2),
@@ -92,8 +92,8 @@ def test_tiled_sgm_rejects_indivisible_rows(rng):
 @pytest.fixture(scope="module")
 def ftp_setup():
     from tests.test_active import _make_rig, _proj_coords_for_plane
-    from simplestereo_tpu.active import buildFringe, StereoFTP
-    from simplestereo_tpu import warp
+    from simplestereo_jax.active import buildFringe, StereoFTP
+    from simplestereo_jax import warp
 
     rig = _make_rig()
     period = 16.0
@@ -139,7 +139,7 @@ def test_sharded_ftp_rejects_indivisible_rows(ftp_setup):
 
 @pytest.mark.parametrize("consistent", [False, True])
 def test_tiled_gsw_bit_parity(rng, consistent):
-    from simplestereo_tpu.passive.gsw import gsw_disparity
+    from simplestereo_jax.passive.gsw import gsw_disparity
 
     mesh = parallel.make_mesh({"rows": 8})
     img1, img2 = _pair(rng, h=40, w=40)
@@ -153,17 +153,16 @@ def test_tiled_gsw_bit_parity(rng, consistent):
 
 @pytest.mark.parametrize("consistent", [False, True])
 def test_tiled_gsw_pallas_engine_bit_parity(rng, consistent):
-    """The exact composition a real pod executes — shard_map + the GSW
-    Pallas kernel (interpreter mode here) — must reproduce the
-    single-device Pallas result bit-for-bit, sentinel halo rows
+    """A 4-device row mesh (halo rows reach across three boundaries) must
+    reproduce the single-device result bit-for-bit, sentinel halo rows
     included."""
-    from simplestereo_tpu.passive.gsw import gsw_disparity
+    from simplestereo_jax.passive.gsw import gsw_disparity
 
     mesh = parallel.make_mesh({"rows": 4},
                               devices=__import__("jax").devices()[:4])
     img1, img2 = _pair(rng, h=24, w=40)
     kw = dict(win_size=5, max_disp=4, min_disp=0, gamma=10.0, f_max=60.0,
-              consistent=consistent, engine="pallas")
+              consistent=consistent)
     single = np.asarray(gsw_disparity(img1, img2, iterations=1, **kw))
     tiled = np.asarray(parallel.tiled_gsw_disparity(
         img1, img2, mesh, iterations=1, **kw))
@@ -171,16 +170,16 @@ def test_tiled_gsw_pallas_engine_bit_parity(rng, consistent):
 
 
 def test_tiled_gsw_pallas_normalize_bit_parity(rng):
-    """Round 4: the in-kernel normalize denominator under shard_map —
-    sentinel halo rows contribute exact 0.0 to both num and den, so the
-    tiled run must stay bit-identical to the single-device kernel."""
-    from simplestereo_tpu.passive.gsw import gsw_disparity
+    """normalize under shard_map — sentinel halo rows contribute exact
+    0.0 to both num and den, so the tiled run must stay bit-identical to
+    the single-device matcher."""
+    from simplestereo_jax.passive.gsw import gsw_disparity
 
     mesh = parallel.make_mesh({"rows": 4},
                               devices=__import__("jax").devices()[:4])
     img1, img2 = _pair(rng, h=24, w=40)
     kw = dict(win_size=5, max_disp=4, min_disp=0, gamma=10.0, f_max=60.0,
-              consistent=True, normalize=True, engine="pallas")
+              consistent=True, normalize=True)
     single = np.asarray(gsw_disparity(img1, img2, iterations=1, **kw))
     tiled = np.asarray(parallel.tiled_gsw_disparity(
         img1, img2, mesh, iterations=1, **kw))
@@ -189,7 +188,7 @@ def test_tiled_gsw_pallas_normalize_bit_parity(rng):
 
 @pytest.mark.slow
 def test_tiled_gsw_normalized_negative_mindisp(rng):
-    from simplestereo_tpu.passive.gsw import gsw_disparity
+    from simplestereo_jax.passive.gsw import gsw_disparity
 
     mesh = parallel.make_mesh({"rows": 4},
                               devices=__import__("jax").devices()[:4])
@@ -207,8 +206,8 @@ def test_tiled_gsw_normalized_negative_mindisp(rng):
 def test_sharded_ftp_anaglyph(rng):
     """The "br" gray mode's global min/max ride pmin/pmax collectives."""
     from tests.test_active import _make_rig, _proj_coords_for_plane
-    from simplestereo_tpu.active import buildAnaglyphFringe, StereoFTPAnaglyph
-    from simplestereo_tpu import warp
+    from simplestereo_jax.active import buildAnaglyphFringe, StereoFTPAnaglyph
+    from simplestereo_jax import warp
 
     rig = _make_rig()
     period = 16.0

@@ -5,8 +5,8 @@ import os
 import numpy as np
 import pytest
 
-from simplestereo_tpu import points
-import simplestereo_tpu.native as native
+from simplestereo_jax import points
+import simplestereo_jax.native as native
 
 
 @pytest.mark.parametrize("mode", ["plain", "bgr", "gray_int", "gray_float"])
@@ -63,7 +63,7 @@ def test_import_ply_custom_columns(tmp_path, rng):
 
 
 def test_reproject_q_matches_manual(rng):
-    from simplestereo_tpu.points import reprojectImageTo3D
+    from simplestereo_jax.points import reprojectImageTo3D
 
     disp = rng.uniform(1, 20, (6, 7)).astype(np.float32)
     Q = np.array([[1, 0, 0, -3.0],
@@ -89,7 +89,7 @@ def test_adimensional_points_geometry(rng):
 
 def test_distort_points_inverts_undistort(rng):
     import jax.numpy as jnp
-    from simplestereo_tpu.geometry import distortion
+    from simplestereo_jax.geometry import distortion
 
     dist = np.array([0.1, -0.05, 0.001, 0.002, 0.02])
     norm = rng.uniform(-0.4, 0.4, (50, 2))

@@ -5,12 +5,12 @@ ground-truth projector pose to recover."""
 import numpy as np
 import pytest
 
-import simplestereo_tpu as ss
-from simplestereo_tpu.calibration import ba
-from simplestereo_tpu.calibration.procam import (
+import simplestereo_jax as ss
+from simplestereo_jax.calibration import ba
+from simplestereo_jax.calibration.procam import (
     chessboardProCam, chessboardProCamWhite, phaseShift, phaseShiftWhite,
     wrapped_phase_4step, heterodyne_unwrap)
-from simplestereo_tpu.active import graycode_patterns
+from simplestereo_jax.active import graycode_patterns
 
 CAM_RES = (256, 192)
 PROJ_RES = (256, 192)

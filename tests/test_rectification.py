@@ -5,8 +5,8 @@ import json
 import numpy as np
 import pytest
 
-import simplestereo_tpu as ss
-from simplestereo_tpu.geometry import npgeom
+import simplestereo_jax as ss
+from simplestereo_jax.geometry import npgeom
 
 
 def _epipolar_alignment_error(rigRect, rng, n=200):
@@ -64,7 +64,7 @@ class TestDirectRectify:
 def _random_rig(rng):
     """A plausible random stereo rig: modest relative rotation, mostly-x
     baseline, distinct intrinsics and small distortion on both cameras."""
-    from simplestereo_tpu.geometry.npgeom import rodrigues_to_matrix
+    from simplestereo_jax.geometry.npgeom import rodrigues_to_matrix
     f1 = rng.uniform(700, 1500)
     f2 = f1 * rng.uniform(0.9, 1.1)
     K1 = np.array([[f1, 0, rng.uniform(600, 680)],
@@ -119,7 +119,7 @@ class TestFittingMatrix:
     def test_corners_fit_in_dest(self, rig2):
         """With alpha=1 every rectified corner lies inside destDims."""
         rigRect = ss.rectification.directRectify(rig2)
-        from simplestereo_tpu.rectification import _getCorners, getFittingMatrix
+        from simplestereo_jax.rectification import _getCorners, getFittingMatrix
         dest = (1280, 720)
         Fit = getFittingMatrix(
             rig2.intrinsic1, rig2.intrinsic2,
@@ -138,7 +138,7 @@ class TestFittingMatrix:
 
     def test_shear_preserves_rows(self, rig2):
         """X-shear must not change the y coordinate of any point."""
-        from simplestereo_tpu.rectification import getBestXShearingTransformation
+        from simplestereo_jax.rectification import getBestXShearingTransformation
         rigRect = ss.rectification.directRectify(rig2)
         S = getBestXShearingTransformation(rigRect.rectHomography1, rig2.res1)
         assert S[1, 0] == 0 and S[1, 1] == 1 and S[1, 2] == 0

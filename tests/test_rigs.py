@@ -5,7 +5,7 @@ import json
 import numpy as np
 import pytest
 
-import simplestereo_tpu as ss
+import simplestereo_jax as ss
 
 
 class TestStereoRig:

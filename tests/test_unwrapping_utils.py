@@ -5,8 +5,8 @@ import os
 import numpy as np
 import pytest
 
-import simplestereo_tpu as ss
-from simplestereo_tpu import unwrapping
+import simplestereo_jax as ss
+from simplestereo_jax import unwrapping
 
 
 class TestUnwrap:
@@ -63,7 +63,7 @@ class TestIIR:
 
 class TestCapture:
     def test_file_sequence(self, tmp_path, rng):
-        from simplestereo_tpu.imgio import imwrite
+        from simplestereo_jax.imgio import imwrite
         paths = []
         for i in range(3):
             p = tmp_path / f"{i}.png"
@@ -93,7 +93,7 @@ class TestCapture:
 
 
 def test_move_extrinsic_origin(rng):
-    from simplestereo_tpu.calibration import ba
+    from simplestereo_jax.calibration import ba
     R1 = ba._rodrigues(rng.normal(0, 0.5, 3))
     R2 = ba._rodrigues(rng.normal(0, 0.5, 3))
     t1 = rng.normal(0, 10, 3)
@@ -118,7 +118,7 @@ def test_draw_epipolar_lines_returns_copies(rig2, rng):
 def test_profiling_throughput_and_memory(tmp_path):
     import numpy as np
     import jax.numpy as jnp
-    from simplestereo_tpu import profiling
+    from simplestereo_jax import profiling
 
     meter = profiling.Throughput("warp", unit="Mpix")
     for i in range(3):
@@ -203,7 +203,7 @@ class TestCaptureDrivers:
         assert (f[:, -1] == 255).all() and (f[:, 0] == 0).all()
 
     def test_file_sources_refuse_control(self, tmp_path, rng):
-        from simplestereo_tpu.imgio import imwrite
+        from simplestereo_jax.imgio import imwrite
         p = tmp_path / "0.png"
         imwrite(str(p), rng.integers(0, 255, (8, 10, 3), np.uint8))
         cap = ss.utils.Capture([str(p)])
@@ -212,7 +212,7 @@ class TestCaptureDrivers:
         assert cap.setFrameRate(30) is False
 
     def test_single_file_path(self, tmp_path, rng):
-        from simplestereo_tpu.imgio import imwrite
+        from simplestereo_jax.imgio import imwrite
         import time
         p = tmp_path / "f.png"
         imwrite(str(p), rng.integers(0, 255, (8, 10, 3), np.uint8))
@@ -235,7 +235,7 @@ class TestCaptureDrivers:
             ss.utils.Capture("rtsp://example/stream")
 
     def test_yuyv_to_bgr_roundtrip(self):
-        from simplestereo_tpu.v4l2 import yuyv_to_bgr
+        from simplestereo_jax.v4l2 import yuyv_to_bgr
         # gray ramp: Y = value, U = V = 128 -> B = G = R = Y
         h, w = 4, 8
         y = np.tile(np.arange(0, 255, 32, np.uint8), (h, 1))
@@ -258,7 +258,7 @@ class TestCaptureDrivers:
         """Example 002 end-to-end against synthetic directory cameras."""
         import runpy
         import sys
-        from simplestereo_tpu.imgio import imwrite
+        from simplestereo_jax.imgio import imwrite
         for cam in ("camL", "camR"):
             d = tmp_path / cam
             d.mkdir()

@@ -11,8 +11,8 @@ import threading
 import numpy as np
 import pytest
 
-import simplestereo_tpu as ss
-from simplestereo_tpu import videoio
+import simplestereo_jax as ss
+from simplestereo_jax import videoio
 
 
 def _frames(rng, n=5, h=24, w=32):

@@ -5,7 +5,7 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from simplestereo_tpu import warp
+from simplestereo_jax import warp
 
 
 @pytest.fixture
@@ -63,7 +63,7 @@ def test_undistort_identity_for_zero_coeffs(img):
 def test_init_undistort_rectify_map_roundtrip(rng):
     """Map lookup must equal the forward-distorted pixel position:
     mapx/mapy(u) = distort(K_new^-1 u), the cv2 semantics."""
-    from simplestereo_tpu.geometry import distortion
+    from simplestereo_jax.geometry import distortion
 
     K = np.array([[40.0, 0, 16.0], [0, 40.0, 12.0], [0, 0, 1]])
     dist = np.array([0.05, -0.02, 0.001, 0.002, 0.01])

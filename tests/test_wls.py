@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from simplestereo_tpu.passive import fast_global_smoother, \
+from simplestereo_jax.passive import fast_global_smoother, \
     wls_filter_disparity
 
 
@@ -66,9 +66,9 @@ def test_wls_fills_lr_checked_sgm_on_tsukuba(ref_res):
     leaves ~7% of nonocc invalid-or-bad; WLS filling/smoothing must
     bring dense bad-2.0 under 3.2% and avgerr under 0.50 px (measured
     2.83% / 0.44 px at lambda=2)."""
-    from simplestereo_tpu.imgio import imread
-    from simplestereo_tpu.passive import StereoSGM
-    from simplestereo_tpu.evaluation import evaluate_disparity, tsukuba_scale
+    from simplestereo_jax.imgio import imread
+    from simplestereo_jax.passive import StereoSGM
+    from simplestereo_jax.evaluation import evaluate_disparity, tsukuba_scale
 
     d = ref_res / "tsukuba"
     left = imread(str(d / "tsukuba_l.png"))
@@ -104,7 +104,7 @@ def _shift_scene(rng, H=24, W=48, d_true=3):
 
 @pytest.mark.parametrize("matcher", ["asw", "sgm"])
 def test_quality_preset_recovers_shift(rng, matcher):
-    from simplestereo_tpu.passive import quality_disparity
+    from simplestereo_jax.passive import quality_disparity
 
     d_true = 3
     img1, img2 = _shift_scene(rng, d_true=d_true)
@@ -122,7 +122,7 @@ def test_quality_preset_recovers_shift(rng, matcher):
 
 
 def test_quality_preset_validates_inputs(rng):
-    from simplestereo_tpu.passive import quality_disparity
+    from simplestereo_jax.passive import quality_disparity
 
     img1, img2 = _shift_scene(rng)
     with pytest.raises(ValueError):
@@ -135,9 +135,9 @@ def test_quality_preset_validates_inputs(rng):
 def test_quality_preset_sgm_tsukuba_gate(ref_res):
     """The preset's sgm point must reproduce the measured dense-quality
     gate (2.83% bad-2.0 / 0.44 px avgerr at lambda=2)."""
-    from simplestereo_tpu.imgio import imread
-    from simplestereo_tpu.passive import quality_disparity
-    from simplestereo_tpu.evaluation import evaluate_disparity, tsukuba_scale
+    from simplestereo_jax.imgio import imread
+    from simplestereo_jax.passive import quality_disparity
+    from simplestereo_jax.evaluation import evaluate_disparity, tsukuba_scale
 
     d = ref_res / "tsukuba"
     left = imread(str(d / "tsukuba_l.png"))
